@@ -10,7 +10,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from haghighatshoarmuir2024_tpu.utils.stats import mae, window_median
+from haghighatshoarmuir2024.utils.stats import mae, window_median
 
 REF_BANDS = {
     "demo-benchmark-simulation-freq1600-2000": 128.571429,

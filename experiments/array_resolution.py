@@ -11,8 +11,8 @@ import numpy as np
 
 from common import FS, bandlimited_noise_template, beam_pattern, beamwidth_3db, sinusoid_template
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.beamformer import Beamformer
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.beamformer import Beamformer
 
 
 def main(template_kind: str = "sin", num_grid: int = 16 * 7):

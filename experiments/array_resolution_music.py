@@ -13,7 +13,7 @@ from common import FS, beamwidth_3db, sinusoid_template
 
 from array_resolution_snn import build_geometry
 
-from haghighatshoarmuir2024_tpu.models.music import MUSIC
+from haghighatshoarmuir2024.models.music import MUSIC
 
 
 def main(kind: str = "circular", snr_db: float = 20.0):

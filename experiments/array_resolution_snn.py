@@ -9,12 +9,12 @@ import numpy as np
 
 from common import FS, beam_pattern, beamwidth_3db, jittered_sinusoid_template
 
-from haghighatshoarmuir2024_tpu import (
+from haghighatshoarmuir2024 import (
     CenterCircularArray,
     LinearArray,
     Random2DArray,
 )
-from haghighatshoarmuir2024_tpu.models.snn_beamformer import SNNBeamformer
+from haghighatshoarmuir2024.models.snn_beamformer import SNNBeamformer
 
 
 def build_geometry(kind: str):

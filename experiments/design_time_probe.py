@@ -1,4 +1,4 @@
-"""Attribute the flagship design-time cold start (VERDICT r2 weak #6).
+"""Attribute the flagship design-time cold start.
 
 bench.py's stderr breakdown showed design 3.8 s (r01) -> 14.6 s (r02).  This
 probe separates the three candidate costs of `Demo.__init__` at bench config
@@ -21,18 +21,19 @@ import numpy as np
 def main():
     import jax
 
-    cache_dir = os.environ.get(
-        "HM2024_JAX_CACHE", os.path.expanduser("~/.cache/hm2024_jax")
+    from haghighatshoarmuir2024.utils.cache import (
+        compilation_cache_dir,
+        enable_persistent_compilation_cache,
     )
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+    enable_persistent_compilation_cache()
+    cache_dir = compilation_cache_dir()
 
     from common import FS
 
-    from haghighatshoarmuir2024_tpu import CenterCircularArray
-    from haghighatshoarmuir2024_tpu.models.xylo import Demo
-    from haghighatshoarmuir2024_tpu.models.snn_beamformer import SNNBeamformer
+    from haghighatshoarmuir2024 import CenterCircularArray
+    from haghighatshoarmuir2024.models.xylo import Demo
+    from haghighatshoarmuir2024.models.snn_beamformer import SNNBeamformer
 
     geometry = CenterCircularArray(radius=4.5e-2, num_mic=7)
     grid = np.linspace(-np.pi, np.pi, 64 * 7 + 1)

@@ -16,12 +16,12 @@ import jax.numpy as jnp
 
 from common import FS, sinusoid_template
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.beamformer import Beamformer
-from haghighatshoarmuir2024_tpu.models.xylo import Demo
-from haghighatshoarmuir2024_tpu.ops.interp import received_signal
-from haghighatshoarmuir2024_tpu.utils import to_numpy
-from haghighatshoarmuir2024_tpu.utils.tracking import track_angles
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.beamformer import Beamformer
+from haghighatshoarmuir2024.models.xylo import Demo
+from haghighatshoarmuir2024.ops.interp import received_signal
+from haghighatshoarmuir2024.utils import to_numpy
+from haghighatshoarmuir2024.utils.tracking import track_angles
 
 
 def main(duration: float = 4.0, snr_db: float = 10.0, frame: float = 0.25):

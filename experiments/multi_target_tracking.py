@@ -31,11 +31,11 @@ import jax.numpy as jnp
 
 from common import FS, fig_lines
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.music import MUSIC
-from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template
-from haghighatshoarmuir2024_tpu.ops.peaks import top_k_peaks
-from haghighatshoarmuir2024_tpu.utils.tracking import track_multi_angles
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.music import MUSIC
+from haghighatshoarmuir2024.ops.interp import signal_from_template
+from haghighatshoarmuir2024.ops.peaks import top_k_peaks
+from haghighatshoarmuir2024.utils.tracking import track_multi_angles
 
 
 def _fold_deg(est, true):

@@ -2,8 +2,8 @@
 
 The framework's multi-chip story is data parallelism over the Monte-Carlo
 trial axis (SURVEY §2.10): trials shard over the mesh ``data`` axis and only
-summary statistics cross devices.  This host has ONE physical core (and one
-TPU chip), so wall-clock speedup from 8 virtual CPU devices is physically
+summary statistics cross devices.  The dev host has few physical cores,
+so wall-clock speedup from 8 virtual CPU devices is physically
 impossible to demonstrate here; the honest, machine-checkable evidence that
 the program *scales* is structural, taken from the compiled SPMD module:
 
@@ -36,10 +36,10 @@ jax.config.update("jax_platforms", "cpu")
 
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.xylo import Demo
-from haghighatshoarmuir2024_tpu.parallel import make_mesh, make_trial_fn
-from haghighatshoarmuir2024_tpu.parallel.montecarlo import folded_angle_error
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.xylo import Demo
+from haghighatshoarmuir2024.parallel import make_mesh, make_trial_fn
+from haghighatshoarmuir2024.parallel.montecarlo import folded_angle_error
 
 FS = 48_000
 

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 
 from common import FS, chirp_template, fig_lines
 
-from haghighatshoarmuir2024_tpu.ops.stht import stht, stht_kernel
-from haghighatshoarmuir2024_tpu.utils import to_numpy
+from haghighatshoarmuir2024.ops.stht import stht, stht_kernel
+from haghighatshoarmuir2024.utils import to_numpy
 
 
 def _analytic(sig: np.ndarray, kernel_duration: float = 10e-3):
@@ -51,7 +51,7 @@ def overlapping_exponentials():
 def random_wideband_phase(seed: int = 0):
     """Bandlimited noise: the phase increments concentrate around the band
     center (the reference's random_phase.py illustration)."""
-    from haghighatshoarmuir2024_tpu.ops.iir import butter_bandpass, iir_filter
+    from haghighatshoarmuir2024.ops.iir import butter_bandpass, iir_filter
 
     rng = np.random.default_rng(seed)
     t = np.arange(0, 0.25, 1 / FS)

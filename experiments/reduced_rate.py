@@ -1,4 +1,4 @@
-"""Reduced internal-rate mode — measured verdict (VERDICT r4 directive 3):
+"""Reduced internal-rate mode — measured verdict:
 **24 kHz is transparent, 12 kHz is refuted.**
 
 The hypothesis: since the u4@12k WIRE is in-band transparent for the
@@ -6,7 +6,7 @@ The hypothesis: since the u4@12k WIRE is in-band transparent for the
 (encode → RZCC → LIF) at fs_internal ∈ {12k, 24k} should buy 2–4× fewer
 sequential LIF steps at unchanged accuracy.
 
-Measured (TPU, 25 trials × {0, 10} dB, tone target, folded error):
+Measured (25 trials × {0, 10} dB, tone target, folded error):
 
 | fs    | matched MAE 0/10 dB | parity-peak MAE 0/10 dB | max delay | τ      |
 |-------|---------------------|-------------------------|-----------|--------|
@@ -48,9 +48,9 @@ import jax.numpy as jnp
 sys.path.insert(0, ".")
 from experiments.common import FS as FS_REF  # noqa: E402
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray  # noqa: E402
-from haghighatshoarmuir2024_tpu.models.xylo import Demo  # noqa: E402
-from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template  # noqa: E402
+from haghighatshoarmuir2024 import CenterCircularArray  # noqa: E402
+from haghighatshoarmuir2024.models.xylo import Demo  # noqa: E402
+from haghighatshoarmuir2024.ops.interp import signal_from_template  # noqa: E402
 
 SOUND_SPEED = 340.0
 
@@ -155,7 +155,7 @@ def main():
             f"{r['audio_sec_per_sec']:9.0f}",
             file=sys.stderr,
         )
-    # deviation gate (VERDICT r4 #3): matched MAE within MC noise of 48 kHz
+    # deviation gate: matched MAE within MC noise of 48 kHz
     # at >= 0 dB.  MC noise for 25 folded-error trials at this accuracy is
     # ~0.2-0.3 deg run-to-run; gate at 0.4 deg.
     for r in rows[1:]:

@@ -9,9 +9,9 @@ import jax.numpy as jnp
 
 from common import FS, sinusoid_template, snr_sweep_config, speech_template, summarize
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.music import MUSIC
-from haghighatshoarmuir2024_tpu.parallel import make_trial_fn, monte_carlo_sweep
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.music import MUSIC
+from haghighatshoarmuir2024.parallel import make_trial_fn, monte_carlo_sweep
 
 NUM_ACTIVE_FREQ = 1
 NUM_FFT_BIN = 2048

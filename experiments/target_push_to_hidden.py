@@ -17,9 +17,9 @@ import jax
 
 from common import FS, sinusoid_template, snr_sweep_config, summarize
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.xylo import DemoPushToHidden, estimate_power
-from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.xylo import DemoPushToHidden, estimate_power
+from haghighatshoarmuir2024.ops.interp import signal_from_template
 
 
 def build_demo(num_grid: int = 16 * 7):

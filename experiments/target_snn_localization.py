@@ -9,9 +9,9 @@ import jax.numpy as jnp
 
 from common import FS, chirp_template, snr_sweep_config, speech_template, summarize
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.snn_beamformer import SNNBeamformer
-from haghighatshoarmuir2024_tpu.parallel import (
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.snn_beamformer import SNNBeamformer
+from haghighatshoarmuir2024.parallel import (
     make_trial_fn,
     monte_carlo_sweep,
     snr_with_bandwidth_correction,

@@ -29,15 +29,15 @@ from common import (
     summarize,
 )
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.xylo import Demo
-from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template
-from haghighatshoarmuir2024_tpu.parallel import (
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.xylo import Demo
+from haghighatshoarmuir2024.ops.interp import signal_from_template
+from haghighatshoarmuir2024.parallel import (
     make_trial_fn,
     monte_carlo_sweep,
     snr_with_bandwidth_correction,
 )
-from haghighatshoarmuir2024_tpu.utils.peak_location import find_peak_location
+from haghighatshoarmuir2024.utils.peak_location import find_peak_location
 
 
 def run(bipolar: bool = True, num_sims: int = 100, num_grid: int = 16 * 7, seed: int = 0,
@@ -95,7 +95,7 @@ def run(bipolar: bool = True, num_sims: int = 100, num_grid: int = 16 * 7, seed:
     )
     if envelope:
         # the reference-parity (peak) rows carry the XyloSim step-convention
-        # ambiguity; print its min–max band beside them (VERDICT r4 #6)
+        # ambiguity; print its min–max band beside them
         out["reference_estimator_convention_envelope"] = convention_envelope(
             demo, t, sig, snr_sweep_config(), num_sims=min(num_sims, 25), seed=seed
         )
@@ -106,7 +106,7 @@ def convention_envelope(
     demo, t, sig, snr_db_vec, num_sims: int = 25, seed: int = 0, batch: int = 25
 ):
     """Min–max MAE envelope of the reference-parity peak estimator over the
-    four XyloSim step conventions (VERDICT r4 directive 6).
+    four XyloSim step conventions.
 
     rockpool is uninstallable here, so the exact ordering of
     micloc/xylo_snn_localization.py:286-313's delegated ``XyloSim`` step is
@@ -118,7 +118,7 @@ def convention_envelope(
     """
     import itertools
 
-    from haghighatshoarmuir2024_tpu.models.xylo.sim import sim_hidden_batch
+    from haghighatshoarmuir2024.models.xylo.sim import sim_hidden_batch
 
     variants = list(
         itertools.product(("decay_first", "integrate_first"), ("subtract", "zero"))
@@ -182,7 +182,7 @@ def _multi_estimator_sweep(trial, snr_db_vec, num_sims, key, batch_size=20):
     """MC sweep where ``trial(key, snr_db) -> (doa_true, ests (K,))`` returns
     several estimators' answers from ONE pipeline forward (the reference
     recomputes per estimator; here the rate profile is shared)."""
-    from haghighatshoarmuir2024_tpu.parallel import folded_angle_error
+    from haghighatshoarmuir2024.parallel import folded_angle_error
 
     keys = jax.random.split(key, num_sims)
     chunk = min(batch_size, num_sims)

@@ -5,7 +5,7 @@ The serving daemon trades wire bytes for throughput (i16 -> u8 -> u4, 48 ->
 Monte-Carlo trials (random DoA, tone template, folded-error MAE — the
 conventions of experiments/target_xylo_localization.py) are run through each
 codec round trip before entering the full quantized pipeline with the
-matched estimator.  Runs on CPU or TPU.
+matched estimator.  Runs on CPU or GPU.
 
 Usage: python experiments/wire_accuracy.py
 """
@@ -15,19 +15,19 @@ import numpy as np
 
 from common import FS, sinusoid_template
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.xylo import Demo
-from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template
-from haghighatshoarmuir2024_tpu.ops.mulaw import (
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.xylo import Demo
+from haghighatshoarmuir2024.ops.interp import signal_from_template
+from haghighatshoarmuir2024.ops.mulaw import (
     mulaw4_decode,
     mulaw_decode,
     unpack4,
 )
-from haghighatshoarmuir2024_tpu.ops.resample import (
+from haghighatshoarmuir2024.ops.resample import (
     design_upsample_fir,
     upsample_poly,
 )
-from haghighatshoarmuir2024_tpu.runtime.server import WireEncoder
+from haghighatshoarmuir2024.runtime.server import WireEncoder
 
 
 def roundtrip(x, wire, up):

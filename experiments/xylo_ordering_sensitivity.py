@@ -1,4 +1,4 @@
-"""Bound the XyloSim step-ordering caveat by measurement (VERDICT r3 #6).
+"""Bound the XyloSim step-ordering caveat by measurement.
 
 rockpool/xylosim is not installable here, so the integer LIF's exact step
 convention (micloc/xylo_snn_localization.py:286-313 delegates it to
@@ -30,10 +30,10 @@ import jax.numpy as jnp
 sys.path.insert(0, ".")
 from experiments.common import speech_template  # noqa: E402
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray  # noqa: E402
-from haghighatshoarmuir2024_tpu.models.xylo import Demo  # noqa: E402
-from haghighatshoarmuir2024_tpu.models.xylo.sim import sim_hidden_batch  # noqa: E402
-from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template  # noqa: E402
+from haghighatshoarmuir2024 import CenterCircularArray  # noqa: E402
+from haghighatshoarmuir2024.models.xylo import Demo  # noqa: E402
+from haghighatshoarmuir2024.models.xylo.sim import sim_hidden_batch  # noqa: E402
+from haghighatshoarmuir2024.ops.interp import signal_from_template  # noqa: E402
 
 FS = 48_000
 VARIANTS = list(itertools.product(("decay_first", "integrate_first"), ("subtract", "zero")))

@@ -1,7 +1,7 @@
 // streamc — native producer-side client for the serving daemon (streamd.cpp).
 //
 // The reference has no serving client at all (audio enters in-process,
-// micloc/record.py:54-60); the TPU framework's daemon speaks a byte protocol
+// micloc/record.py:54-60); the framework's daemon speaks a byte protocol
 // (streamd.cpp header comment), and production producers are C-class edge
 // devices.  This library completes the native loop: TCP framing, the
 // /dev/shm ring producer (same layout streamd consumes), and the stateful

@@ -4,9 +4,9 @@
 // The reference has no serving path at all: its live demo shells out to sox
 // for one 0.25 s capture at a time and re-enters Python between frames
 // (micloc/record.py:54-60, micloc/xylo_snn_localization.py:446-542).  This
-// daemon is the production-shaped TPU twin: N concurrent TCP audio streams
+// daemon is the production-shaped twin: N concurrent TCP audio streams
 // land in per-stream ring buffers, the Python compute loop drains at most
-// one chunk per stream per step (the carried-state batched TPU step
+// one chunk per stream per step (the carried-state batched device step
 // advances every stream exactly one chunk), and DoA results are routed back
 // to each stream's socket.
 //

@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 from scipy.signal import hilbert, lfilter, butter
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.beamformer import Beamformer
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.beamformer import Beamformer
 
 FS = 48_000
 
@@ -147,7 +147,7 @@ def test_generalized_top_eigvec_golden():
     vs scipy.linalg.eigh's last column (micloc/beamformer.py:176-187)."""
     import scipy.linalg
 
-    from haghighatshoarmuir2024_tpu.ops.linalg import generalized_top_eigvec
+    from haghighatshoarmuir2024.ops.linalg import generalized_top_eigvec
 
     rng = np.random.default_rng(7)
     for trial in range(8):

@@ -12,7 +12,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_decode_reference_speech_file():
-    from haghighatshoarmuir2024_tpu.io.flac import read_flac
+    from haghighatshoarmuir2024.io.flac import read_flac
 
     data, fs = read_flac(REF_FLAC)
     assert fs == 16_000.0
@@ -24,13 +24,13 @@ def test_decode_reference_speech_file():
 
 def test_decode_matches_embedded_md5():
     """FLAC files carry an MD5 of the raw PCM — end-to-end bit-exactness."""
-    from haghighatshoarmuir2024_tpu.io.flac import verify_md5
+    from haghighatshoarmuir2024.io.flac import verify_md5
 
     assert verify_md5(REF_FLAC)
 
 
 def test_file_audio_source_reads_flac():
-    from haghighatshoarmuir2024_tpu.io import FileAudioSource
+    from haghighatshoarmuir2024.io import FileAudioSource
 
     src = FileAudioSource(REF_FLAC, fs=48_000)
     assert src.fs == 48_000

@@ -3,12 +3,12 @@ reference (micloc/array_geometry.py, micloc/beamformer.py:113-129,233-245)."""
 import numpy as np
 import jax.numpy as jnp
 
-from haghighatshoarmuir2024_tpu import (
+from haghighatshoarmuir2024 import (
     CircularArray,
     CenterCircularArray,
     LinearArray,
 )
-from haghighatshoarmuir2024_tpu.ops import (
+from haghighatshoarmuir2024.ops import (
     interp_uniform,
     received_signal,
     signal_from_template,
@@ -128,8 +128,8 @@ def test_multipath_single_path_matches_free_field():
     propagation model."""
     import jax.numpy as jnp
 
-    from haghighatshoarmuir2024_tpu import CenterCircularArray
-    from haghighatshoarmuir2024_tpu.ops.interp import (
+    from haghighatshoarmuir2024 import CenterCircularArray
+    from haghighatshoarmuir2024.ops.interp import (
         signal_from_template,
         signal_from_template_multipath,
     )
@@ -150,7 +150,7 @@ def test_room_image_paths_geometry():
     """Image-source table: direct path first (zero delay, unit gain), 4
     first-order wall images with positive extra delay and gain
     reflection * d_direct/d_image."""
-    from haghighatshoarmuir2024_tpu.ops.interp import room_image_paths
+    from haghighatshoarmuir2024.ops.interp import room_image_paths
 
     doas, extra, gains = room_image_paths(
         source_xy=(3.0, 2.0), array_xy=(1.0, 1.5), room_wh=(5.0, 4.0),
@@ -179,9 +179,9 @@ def test_multipath_localization_still_finds_direct_path():
     input (the reference cannot synthesize this case at all)."""
     import jax.numpy as jnp
 
-    from haghighatshoarmuir2024_tpu import CenterCircularArray
-    from haghighatshoarmuir2024_tpu.models.beamformer import Beamformer
-    from haghighatshoarmuir2024_tpu.ops.interp import (
+    from haghighatshoarmuir2024 import CenterCircularArray
+    from haghighatshoarmuir2024.models.beamformer import Beamformer
+    from haghighatshoarmuir2024.ops.interp import (
         room_image_paths,
         signal_from_template_multipath,
     )

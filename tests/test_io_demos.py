@@ -3,8 +3,8 @@ synthetic source — the reference's own offline fallback)."""
 import numpy as np
 import pytest
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.io import (
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.io import (
     AudioRecorder,
     MultiMicDevKitNotFound,
     SyntheticAudioSource,
@@ -32,7 +32,7 @@ def test_synthetic_source_frames():
 def test_file_source_roundtrip(tmp_path):
     from scipy.io import wavfile
 
-    from haghighatshoarmuir2024_tpu.io import FileAudioSource
+    from haghighatshoarmuir2024.io import FileAudioSource
 
     rng = np.random.default_rng(0)
     data = (rng.standard_normal((24_000, 4)) * 1000).astype(np.int16)
@@ -66,7 +66,7 @@ def test_visualizer_headless_ring_buffer():
 
 
 def test_hilbert_demo_end_to_end():
-    from haghighatshoarmuir2024_tpu.demos.localization_demo import Demo
+    from haghighatshoarmuir2024.demos.localization_demo import Demo
 
     geo = CenterCircularArray(radius=4.5e-2, num_mic=7)
     doa_true = 0.7
@@ -83,7 +83,7 @@ def test_hilbert_demo_end_to_end():
 
 
 def test_music_demo_end_to_end():
-    from haghighatshoarmuir2024_tpu.demos.localization_demo_music import Demo
+    from haghighatshoarmuir2024.demos.localization_demo_music import Demo
 
     geo = CenterCircularArray(radius=4.5e-2, num_mic=7)
     doa_true = -1.2
@@ -100,7 +100,7 @@ def test_music_demo_end_to_end():
 
 
 def test_snn_demo_end_to_end():
-    from haghighatshoarmuir2024_tpu.demos.localization_demo_snn import Demo
+    from haghighatshoarmuir2024.demos.localization_demo_snn import Demo
 
     geo = CenterCircularArray(radius=4.5e-2, num_mic=7)
     doa_true = 0.7
@@ -114,8 +114,8 @@ def test_snn_demo_end_to_end():
 
 
 def test_xylo_demo_activity_detection():
-    from haghighatshoarmuir2024_tpu.demos.localization_demo_xylo import Demo
-    from haghighatshoarmuir2024_tpu.models.xylo import Demo as XyloDemo
+    from haghighatshoarmuir2024.demos.localization_demo_xylo import Demo
+    from haghighatshoarmuir2024.models.xylo import Demo as XyloDemo
 
     geo = CenterCircularArray(radius=4.5e-2, num_mic=7)
     xd = XyloDemo(
@@ -132,7 +132,7 @@ def test_xylo_demo_activity_detection():
     silent = np.zeros((4800, 7))
     assert np.isnan(d.process_frame(silent))  # no activity -> NaN
     t = np.arange(0, 0.1, 1 / FS)
-    from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template
+    from haghighatshoarmuir2024.ops.interp import signal_from_template
 
     sig_in = np.asarray(
         signal_from_template(geo, t, np.sin(2 * np.pi * 1750 * t), 0.7, fs=FS)
@@ -157,7 +157,7 @@ def test_experiment_figure_helpers(tmp_path, monkeypatch):
 
 
 def test_srp_demo_end_to_end():
-    from haghighatshoarmuir2024_tpu.demos.localization_demo_srp import Demo
+    from haghighatshoarmuir2024.demos.localization_demo_srp import Demo
 
     geo = CenterCircularArray(radius=4.5e-2, num_mic=7)
     doa_true = 0.7

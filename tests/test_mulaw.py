@@ -1,7 +1,7 @@
 """Mu-law wire codec (ops/mulaw.py): exact-log companding, 8-bit wire."""
 import numpy as np
 
-from haghighatshoarmuir2024_tpu.ops.mulaw import (
+from haghighatshoarmuir2024.ops.mulaw import (
     MU,
     mulaw_decode,
     mulaw_decode_table,
@@ -44,7 +44,7 @@ def test_extremes_and_zero():
 
 
 def test_mulaw4_roundtrip_and_tables():
-    from haghighatshoarmuir2024_tpu.ops.mulaw import (
+    from haghighatshoarmuir2024.ops.mulaw import (
         mulaw4_decode,
         mulaw4_decode_table,
         mulaw4_encode,

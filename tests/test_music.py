@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 from scipy.signal import lfilter, butter
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.music import MUSIC
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.music import MUSIC
 
 FS = 48_000
 
@@ -142,7 +142,7 @@ def test_music_noise_subspace_variant(setup):
     # a documented MUSIC failure mode, not a regression): S=2 resolves both
     from scipy.signal import butter as sp_butter, lfilter as sp_lfilter
 
-    from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template
+    from haghighatshoarmuir2024.ops.interp import signal_from_template
 
     rng = np.random.default_rng(0)
     bb, ba = sp_butter(2, list(freq_range), btype="bandpass", fs=FS)
@@ -211,7 +211,7 @@ def test_music_synthesis_convention_unfolded(setup):
     estimate by 180 deg — this check is UNFOLDED (no arcsin|sin|), because the
     folded metric silently hides exactly that mirror (it did, in the r3
     multiple_targets experiment)."""
-    from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template
+    from haghighatshoarmuir2024.ops.interp import signal_from_template
 
     geometry, music, freq_range, doa_list = setup
     grid = music.doa_list
@@ -241,8 +241,8 @@ def test_music_two_sources_unfolded_noise_subspace(setup):
     """Two tones at +-60 deg, minus-convention synthesis: the noise-subspace
     pseudospectrum (num_sources=2, beyond parity) resolves BOTH on the
     correct side of the circle, unfolded, within two grid steps."""
-    from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template
-    from haghighatshoarmuir2024_tpu.ops.peaks import top_k_peaks
+    from haghighatshoarmuir2024.ops.interp import signal_from_template
+    from haghighatshoarmuir2024.ops.peaks import top_k_peaks
 
     geometry, music, freq_range, doa_list = setup
     grid = music.doa_list

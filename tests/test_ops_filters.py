@@ -4,7 +4,7 @@ import pytest
 import jax.numpy as jnp
 from scipy.signal import lfilter, butter, hilbert
 
-from haghighatshoarmuir2024_tpu.ops import (
+from haghighatshoarmuir2024.ops import (
     fir_filter,
     iir_filter,
     butter_bandpass,
@@ -159,7 +159,7 @@ def test_hilbert_iir_fit_matches_reference_construction():
     (port of tests/test_hilbert_iir.py:18-57)."""
     from scipy.linalg import hankel as scipy_hankel
 
-    from haghighatshoarmuir2024_tpu.ops.hilbert_iir import fit_hilbert_iir
+    from haghighatshoarmuir2024.ops.hilbert_iir import fit_hilbert_iir
 
     fs, dur = 50_000, 10e-3
     b_got, a_got, rel_err = fit_hilbert_iir(fs, dur, deg_MA=6, deg_AR=6)
@@ -181,7 +181,7 @@ def test_hilbert_iir_fit_matches_reference_construction():
 
 
 def test_hilbert_iir_analytic_runs():
-    from haghighatshoarmuir2024_tpu.ops.hilbert_iir import (
+    from haghighatshoarmuir2024.ops.hilbert_iir import (
         fit_hilbert_iir,
         hilbert_iir_analytic,
     )
@@ -199,7 +199,7 @@ def test_iir_cumsum_level2_matches_level1(rng):
     with the plain level-1 scan to float64 rounding — including a carried
     state produced by one level and consumed by the other (the TDF2 seam
     contract is basis-independent)."""
-    import haghighatshoarmuir2024_tpu.ops.iir as iir_mod
+    import haghighatshoarmuir2024.ops.iir as iir_mod
 
     fs = 48_000
     for order, band in [(1, (1600, 1900)), (2, (1600, 1900)), (2, (300, 400))]:
@@ -234,7 +234,7 @@ def test_modal_transform_tames_powers():
     """The modal basis bounds every lifted power by ~the spectral radius —
     the property that makes the level-2 matrices float-safe (the companion
     form transiently amplifies to ~500 at radius 0.66)."""
-    from haghighatshoarmuir2024_tpu.ops.iir import _modal_transform, _tdf2_matrices
+    from haghighatshoarmuir2024.ops.iir import _modal_transform, _tdf2_matrices
 
     b, a = butter_bandpass(2, (1600, 1900), 48_000)
     A, _, _ = _tdf2_matrices(b, a)

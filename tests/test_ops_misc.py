@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 from scipy.signal import lfilter
 
-from haghighatshoarmuir2024_tpu.ops import (
+from haghighatshoarmuir2024.ops import (
     ButterworthFilterbank,
     Envelope,
     dc_removed_sing_vec,

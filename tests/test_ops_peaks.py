@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 from scipy.signal import find_peaks, butter, lfilter
 
-from haghighatshoarmuir2024_tpu.ops import (
+from haghighatshoarmuir2024.ops import (
     find_peaks_mask,
     local_maxima_mask,
     rzcc_encode,
@@ -143,7 +143,7 @@ def test_iaf_encoders_match_reference():
 def test_bounded_variants_match_full(seed):
     """Bounded-plateau and combined-extrema forms equal the exact masks for
     continuous-valued signals."""
-    from haghighatshoarmuir2024_tpu.ops.peaks import (
+    from haghighatshoarmuir2024.ops.peaks import (
         local_maxima_mask_bounded,
         local_extrema_mask_bounded,
     )

@@ -1,26 +1,27 @@
-"""Parity tests for the Pallas integer-LIF kernels (ops/pallas/lif_kernel.py).
+"""Parity tests for the Pallas integer-LIF kernel (ops/pallas/lif_kernel.py).
 
-The kernels produce every benchmark number, so their integer dynamics must be
+The kernel produces every benchmark number, so its integer dynamics must be
 IDENTICAL to the lax.scan simulator (models/xylo/sim._sim_hidden) that the
-golden tests validate.  On CPU the public wrappers fall back to the scan, so
-these tests drive the Pallas kernels themselves through ``interpret=True`` —
-same kernel code, interpreted — across random configs including saturation,
-nonzero recurrence, ragged T (not divisible by the time chunk) and carried
-state.  The compiled (non-interpret) paths are covered on the real chip by
-``tests_tpu/test_device_parity.py`` (run ``python -m pytest tests_tpu/ -q``
-outside this CPU-forced suite).
+golden tests validate.  On CPU the public wrappers run the scan, so these
+tests drive the kernel itself through ``interpret=True`` — same kernel code,
+interpreted — across random configs including saturation, nonzero
+recurrence, ragged T (not a multiple of the unrolled step group), padded
+neuron blocks, multi-word spike packing and carried state.  The compiled
+path is covered on the GPU by ``tests_gpu/test_device_parity.py``.
 """
 import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
 
-from haghighatshoarmuir2024_tpu.models.xylo.quantize import XyloConfig
-from haghighatshoarmuir2024_tpu.models.xylo.sim import sim_hidden_batch, _sim_hidden
-from haghighatshoarmuir2024_tpu.ops.pallas.lif_kernel import (
-    _lif_count_impl,
-    _lif_count_stateful_impl,
+from haghighatshoarmuir2024.models.xylo.quantize import XyloConfig
+from haghighatshoarmuir2024.models.xylo.sim import sim_hidden_batch, _sim_hidden
+from haghighatshoarmuir2024.ops.pallas.lif_kernel import (
+    _pack_spikes,
     lif_count_rates,
+    lif_count_rates_bipolar,
+    lif_count_stateful,
+    lif_count_stateful_bipolar,
 )
 
 
@@ -50,25 +51,10 @@ def make_spikes(seed, B=3, T=50, C=12, p=0.15, max_count=2):
     ).astype(np.int32)
 
 
-def pallas_counts(config, spikes_btc, time_chunk=8, int8_mm=None):
-    """Drive the count kernel in interpret mode (the TPU wrapper's core)."""
-    wr = np.asarray(config.w_rec)
-    rec_coef = int(wr.flat[0]) if wr.size else 0
-    if int8_mm is None:  # same guard as the lif_count_rates wrapper
-        int8_mm = bool(np.all(np.abs(np.asarray(config.w_in)) <= 127))
-    spikes_tbc = jnp.transpose(jnp.asarray(spikes_btc, jnp.int32), (1, 0, 2))
+def pallas_counts(config, spikes_btc, spike_bound=None):
+    """Drive the kernel in interpret mode (what the GPU compiles)."""
     return np.asarray(
-        _lif_count_impl(
-            spikes_tbc,
-            jnp.asarray(config.w_in, jnp.int32),
-            jnp.asarray(config.dash_syn, jnp.int32),
-            jnp.asarray(config.dash_mem, jnp.int32),
-            jnp.asarray(config.threshold, jnp.int32),
-            rec_coef=rec_coef,
-            time_chunk=time_chunk,
-            interpret=True,
-            int8_mm=int8_mm,
-        )
+        lif_count_rates(config, spikes_btc, spike_bound=spike_bound, interpret=True)
     )
 
 
@@ -83,13 +69,27 @@ def test_lif_count_interpret_matches_scan(seed, rec_coef):
     np.testing.assert_array_equal(pallas_counts(config, spikes), scan_counts(config, spikes))
 
 
+@pytest.mark.parametrize(
+    "C,N,rec_coef",
+    [(40, 200, 0), (40, 200, -1), (70, 33, 0)],
+    ids=["two-neuron-blocks", "one-row-block", "multi-word"],
+)
+def test_lif_kernel_block_and_packing_shapes_match_scan(C, N, rec_coef):
+    """Neuron padding to the block (N=200 → two 128-wide blocks with
+    rec_coef == 0, one 256-wide row block with the recurrence), and spike
+    words spanning several int32 words (70 binary channels → 3 words)."""
+    config = make_config(C + N, C=C, N=N, rec_coef=rec_coef, w_scale=15)
+    spikes = make_spikes(C + N, T=21, C=C, max_count=1)
+    np.testing.assert_array_equal(
+        pallas_counts(config, spikes, spike_bound=1), scan_counts(config, spikes)
+    )
+
+
 def test_lif_count_interpret_ragged_T():
-    # T = 53 with time_chunk 8: the padded tail must contribute nothing
+    # T = 53: six unrolled groups of 8 plus a 5-step tail
     config = make_config(7, rec_coef=-2)
     spikes = make_spikes(7, T=53)
-    np.testing.assert_array_equal(
-        pallas_counts(config, spikes, time_chunk=8), scan_counts(config, spikes)
-    )
+    np.testing.assert_array_equal(pallas_counts(config, spikes), scan_counts(config, spikes))
 
 
 def test_lif_count_interpret_saturation():
@@ -103,29 +103,50 @@ def test_lif_count_interpret_saturation():
 
 
 def test_lif_count_interpret_time_chunk_invariance():
+    """Counts do not depend on where T falls against the unrolled step
+    group: every prefix length around a group boundary matches the scan."""
     config = make_config(5, rec_coef=-2)
     spikes = make_spikes(5, T=64)
-    a = pallas_counts(config, spikes, time_chunk=4)
-    b = pallas_counts(config, spikes, time_chunk=32)
-    np.testing.assert_array_equal(a, b)
+    for T in (7, 8, 9, 63, 64):
+        np.testing.assert_array_equal(
+            pallas_counts(config, spikes[:, :T]), scan_counts(config, spikes[:, :T])
+        )
 
 
-def test_lif_count_int8_and_f32_mxu_paths_agree():
-    """The int8 MXU projection and the f32 fallback are both exact for
-    int8-range weights — identical counts bit for bit."""
+def test_lif_count_binary_and_int8_packings_agree():
+    """Binary spikes through the bit-packed words (spike_bound=1) and the
+    byte-packed words give identical counts, equal to the scan."""
     for seed in (13, 14):
         config = make_config(seed, rec_coef=-1, w_scale=127)
-        spikes = make_spikes(seed, T=70)
-        a = pallas_counts(config, spikes, int8_mm=True)
-        b = pallas_counts(config, spikes, int8_mm=False)
+        spikes = make_spikes(seed, T=70, max_count=1)
+        a = pallas_counts(config, spikes, spike_bound=1)
+        b = pallas_counts(config, spikes)
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, scan_counts(config, spikes))
 
 
+def test_pack_spikes_layout():
+    """Packed words are (B, words, T); bit j / byte j of word k is channel
+    (k·per_word + j), int8 values sign-extend."""
+    rng = np.random.default_rng(3)
+    s = rng.integers(-128, 128, size=(5, 2, 6)).astype(np.int32)
+    words = np.asarray(_pack_spikes(jnp.asarray(s), 8)).view(np.uint32)
+    assert words.shape == (2, 2, 5)
+    for c in range(6):
+        byte = (words[:, c // 4, :] >> (8 * (c % 4))) & 0xFF
+        np.testing.assert_array_equal(byte.astype(np.uint8).view(np.int8), s[:, :, c].T)
+    bits = (s > 0).astype(np.int32)
+    words = np.asarray(_pack_spikes(jnp.asarray(bits), 1)).view(np.uint32)
+    assert words.shape == (2, 1, 5)
+    for c in range(6):
+        np.testing.assert_array_equal((words[:, 0, :] >> c) & 1, bits[:, :, c].T)
+
+
 def test_lif_count_no_sat_clip_elision_exact():
-    """When the static bound analysis proves the clips dead, the no_sat
-    kernel variant returns identical integers to the clipped one."""
-    from haghighatshoarmuir2024_tpu.ops.pallas.lif_kernel import (
+    """When the static bound analysis proves the clips dead, the clip-free
+    kernel returns identical integers to the clipped one."""
+    from haghighatshoarmuir2024.ops.pallas.lif_kernel import (
+        _lif_impl,
         _no_saturation_possible,
     )
 
@@ -135,18 +156,18 @@ def test_lif_count_no_sat_clip_elision_exact():
     spikes = (make_spikes(17, T=70, max_count=1) > 0).astype(np.int32)
     assert _no_saturation_possible(config, spike_bound=1, rec_coef=0)
 
-    wr = np.asarray(config.w_rec)
-    rec_coef = int(wr.flat[0]) if wr.size else 0
-    spikes_tbc = jnp.transpose(jnp.asarray(spikes, jnp.int32), (1, 0, 2))
+    B, N = spikes.shape[0], config.n_hidden
+    zeros = jnp.zeros((B, N), jnp.int32)
     args = (
-        spikes_tbc,
+        jnp.transpose(jnp.asarray(spikes, jnp.int32), (1, 0, 2)),
         jnp.asarray(config.w_in, jnp.int32),
         jnp.asarray(config.dash_syn, jnp.int32),
         jnp.asarray(config.dash_mem, jnp.int32),
         jnp.asarray(config.threshold, jnp.int32),
+        zeros, zeros, zeros,
     )
-    a = _lif_count_impl(*args, rec_coef=rec_coef, time_chunk=8, interpret=True, no_sat=True)
-    b = _lif_count_impl(*args, rec_coef=rec_coef, time_chunk=8, interpret=True, no_sat=False)
+    a = _lif_impl(*args, field=1, rec_coef=0, no_sat=True, interpret=True)[0]
+    b = _lif_impl(*args, field=1, rec_coef=0, no_sat=False, interpret=True)[0]
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     np.testing.assert_array_equal(np.asarray(a), scan_counts(config, spikes))
 
@@ -156,13 +177,9 @@ def test_lif_count_no_sat_clip_elision_exact():
 
 
 def test_lif_count_bipolar_kernel_matches_combined_raster():
-    """The bipolar kernel (kp/kn in, pos = kp & ~kn combined in-kernel, dual
-    narrow dots) equals running the standard kernel on the concatenated
-    (T, B, 2C) raster — including collisions where both polarities fire."""
-    from haghighatshoarmuir2024_tpu.ops.pallas.lif_kernel import (
-        _lif_count_bipolar_impl,
-    )
-
+    """The bipolar wrapper (kp/kn in, pos = kp & ~kn) equals running the
+    scan on the concatenated (T, B, 2C) raster — including collisions where
+    both polarities fire."""
     rng = np.random.default_rng(23)
     C, N, B, T = 6, 20, 3, 70
     config = make_config(23, C=2 * C, N=N, rec_coef=-1, w_scale=30)
@@ -171,36 +188,16 @@ def test_lif_count_bipolar_kernel_matches_combined_raster():
     pos = (kp & (1 - kn)).astype(np.int32)
     enc_btc = np.concatenate([pos, kn.astype(np.int32)], axis=-1).transpose(1, 0, 2)
 
-    for int8_mm in (True, False):
-        got = _lif_count_bipolar_impl(
-            jnp.asarray(kp), jnp.asarray(kn),
-            jnp.asarray(config.w_in, jnp.int32),
-            jnp.asarray(config.dash_syn, jnp.int32),
-            jnp.asarray(config.dash_mem, jnp.int32),
-            jnp.asarray(config.threshold, jnp.int32),
-            rec_coef=-1, time_chunk=8, interpret=True, int8_mm=int8_mm,
+    for interpret in (True, False):  # kernel and the CPU scan dispatch
+        got = lif_count_rates_bipolar(
+            config, jnp.asarray(kp), jnp.asarray(kn), interpret=interpret
         )
         np.testing.assert_array_equal(np.asarray(got), scan_counts(config, enc_btc))
 
 
-def stateful_call(config, spikes_btc, state, time_chunk=8):
-    wr = np.asarray(config.w_rec)
-    rec_coef = int(wr.flat[0]) if wr.size else 0
-    int8_mm = bool(np.all(np.abs(np.asarray(config.w_in)) <= 127))
-    spikes_tbc = jnp.transpose(jnp.asarray(spikes_btc, jnp.int32), (1, 0, 2))
-    out = _lif_count_stateful_impl(
-        spikes_tbc,
-        jnp.asarray(config.w_in, jnp.int32),
-        jnp.asarray(config.dash_syn, jnp.int32),
-        jnp.asarray(config.dash_mem, jnp.int32),
-        jnp.asarray(config.threshold, jnp.int32),
-        jnp.asarray(state[0], jnp.int32),
-        jnp.asarray(state[1], jnp.int32),
-        jnp.asarray(state[2], jnp.int32),
-        rec_coef=rec_coef,
-        time_chunk=time_chunk,
-        interpret=True,
-        int8_mm=int8_mm,
+def stateful_call(config, spikes_btc, state, interpret=True):
+    out = lif_count_stateful(
+        config, jnp.asarray(spikes_btc, jnp.int32), *state, interpret=interpret
     )
     return np.asarray(out[0]), tuple(np.asarray(s) for s in out[1:])
 
@@ -220,7 +217,10 @@ def test_lif_stateful_interpret_chunked_equals_full():
 
     # full-length scan reference with the same carried-state semantics
     w_in = jnp.asarray(config.w_in, jnp.float32)
-    inp = jnp.einsum("btc,cn->btn", jnp.asarray(spikes, jnp.float32), w_in).astype(jnp.int32)
+    inp = jnp.einsum(
+        "btc,cn->btn", jnp.asarray(spikes, jnp.float32), w_in,
+        precision=jax.lax.Precision.HIGHEST,
+    ).astype(jnp.int32)
 
     def one(inp_b):
         s0 = tuple(jnp.zeros(N, jnp.int32) for _ in range(3))
@@ -245,16 +245,11 @@ def test_lif_stateful_interpret_chunked_equals_full():
 
 
 def test_lif_stateful_bipolar_chunked_equals_combined():
-    """Carried-state bipolar kernel calls == the plain stateful kernel on the
-    combined (pos, neg) raster, chunk by chunk."""
-    from haghighatshoarmuir2024_tpu.ops.pallas.lif_kernel import (
-        _lif_count_bipolar_stateful_impl,
-    )
-
+    """Carried-state bipolar kernel calls == the scan on the combined
+    (pos, neg) raster, chunk by chunk."""
     rng = np.random.default_rng(29)
     C, N, B = 5, 16, 2
     config = make_config(29, C=2 * C, N=N, rec_coef=-2, w_scale=25)
-    wr = -2
 
     state_a = tuple(np.zeros((B, N), np.int32) for _ in range(3))
     state_b = tuple(np.zeros((B, N), np.int32) for _ in range(3))
@@ -264,14 +259,9 @@ def test_lif_stateful_bipolar_chunked_equals_combined():
         T = (30, 17, 24)[part]  # ragged chunks
         kp = (rng.random((T, B, C)) < 0.25).astype(np.int8)
         kn = (rng.random((T, B, C)) < 0.25).astype(np.int8)
-        out = _lif_count_bipolar_stateful_impl(
-            jnp.asarray(kp), jnp.asarray(kn),
-            jnp.asarray(config.w_in, jnp.int32),
-            jnp.asarray(config.dash_syn, jnp.int32),
-            jnp.asarray(config.dash_mem, jnp.int32),
-            jnp.asarray(config.threshold, jnp.int32),
-            jnp.asarray(state_a[0]), jnp.asarray(state_a[1]), jnp.asarray(state_a[2]),
-            rec_coef=wr, time_chunk=8, interpret=True,
+        out = lif_count_stateful_bipolar(
+            config, jnp.asarray(kp), jnp.asarray(kn),
+            *(jnp.asarray(s) for s in state_a), interpret=True,
         )
         tot_a += np.asarray(out[0])
         state_a = tuple(np.asarray(s) for s in out[1:])
@@ -279,7 +269,7 @@ def test_lif_stateful_bipolar_chunked_equals_combined():
         pos = (kp & (1 - kn)).astype(np.int32)
         enc = np.concatenate([pos, kn.astype(np.int32)], axis=-1)  # (T, B, 2C)
         counts_b, st = stateful_call(
-            config, enc.transpose(1, 0, 2), state_b
+            config, enc.transpose(1, 0, 2), state_b, interpret=False
         )
         tot_b += counts_b
         state_b = st
@@ -297,6 +287,33 @@ def test_lif_count_rates_rejects_dense_w_rec():
         lif_count_rates(config, make_spikes(31))
 
 
-# The compiled-path TPU test formerly gated here on RUN_TPU_TESTS could never
-# fire (conftest forces the CPU backend); it lives in tests_tpu/ now, which
-# runs on the real chip without the CPU forcing.
+def test_lif_kernel_traces_under_shard_map():
+    """The stream-sharded serving step runs the kernel under shard_map:
+    its outputs must carry the mesh axes the inputs vary over, and the
+    loop carry must type-check.  Abstract evaluation of the compiled
+    (non-interpret) path checks both without a GPU."""
+    from jax.sharding import PartitionSpec as P
+
+    from haghighatshoarmuir2024.ops.pallas.lif_kernel import _lif_impl
+    from haghighatshoarmuir2024.parallel import make_mesh
+
+    mesh = make_mesh(4, (4, 1))
+    config = make_config(37, rec_coef=-1)
+    B, T, N = 8, 20, config.n_hidden
+    consts = tuple(
+        jnp.asarray(x, jnp.int32)
+        for x in (config.w_in, config.dash_syn, config.dash_mem, config.threshold)
+    )
+
+    def body(s, i, v, k):
+        return _lif_impl(s, *consts, i, v, k, field=1, rec_coef=-1, no_sat=False)
+
+    step = jax.shard_map(
+        body, mesh=mesh, in_specs=(P(None, "data"),) + (P("data"),) * 3,
+        out_specs=P("data"),
+    )
+    state = jax.ShapeDtypeStruct((B, N), jnp.int32)
+    out = jax.eval_shape(
+        step, jax.ShapeDtypeStruct((T, B, config.n_in), jnp.int32), state, state, state
+    )
+    assert [o.shape for o in out] == [(B, N)] * 4

@@ -1,6 +1,6 @@
 """24 kHz reduced internal-rate mode (documented deviation, round 5).
 
-experiments/reduced_rate.py measured the gate on TPU: matched MAE at
+experiments/reduced_rate.py measured the gate: matched MAE at
 fs=24 kHz is within MC noise of 48 kHz (0.88/0.84 vs 0.82/0.90 deg at
 0/10 dB) while 12 kHz degrades (2.1 deg, sub-sample aperture + degenerate
 integer taus — see the experiment's docstring).  These tests pin the mode's
@@ -14,10 +14,10 @@ Reference N/A: micloc hardcodes fs=48 kHz everywhere
 import numpy as np
 import pytest
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.xylo import Demo
-from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template
-from haghighatshoarmuir2024_tpu.ops.resample import decimate_fir
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.xylo import Demo
+from haghighatshoarmuir2024.ops.interp import signal_from_template
+from haghighatshoarmuir2024.ops.resample import decimate_fir
 
 FS24 = 24_000
 

@@ -12,7 +12,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from haghighatshoarmuir2024_tpu.ops.resample import (
+from haghighatshoarmuir2024.ops.resample import (
     TAPS_PER_PHASE,
     decimate_fir,
     design_upsample_fir,

@@ -7,10 +7,10 @@ Production twin of the reference's one-capture-at-a-time live demo loop
 import numpy as np
 import pytest
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.xylo import Demo
-from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template
-from haghighatshoarmuir2024_tpu.runtime.server import (
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.xylo import Demo
+from haghighatshoarmuir2024.ops.interp import signal_from_template
+from haghighatshoarmuir2024.runtime.server import (
     LocalizationServer,
     ShmStreamClient,
     StreamClient,
@@ -140,7 +140,7 @@ def test_server_u4_upsampled_wire_localizes(demo):
     fewer bytes than float32 (ops/mulaw.py + ops/resample.py) — still serves
     correct DoAs: the on-device polyphase ingest reconstructs the 48 kHz
     stream with carried per-stream filter state across chunk seams."""
-    from haghighatshoarmuir2024_tpu.runtime.server import WireEncoder
+    from haghighatshoarmuir2024.runtime.server import WireEncoder
 
     chunk_sec = 0.125
     Tc = int(chunk_sec * FS)
@@ -176,7 +176,7 @@ def test_server_mulaw_wire_localizes(demo):
     """The mu-law u8 wire (ops/mulaw.py, half of PCM16) serves the same
     answers: companding noise (~27 dB per-sample SNR) is far above what the
     zero-crossing spike front end needs."""
-    from haghighatshoarmuir2024_tpu.ops.mulaw import mulaw_encode
+    from haghighatshoarmuir2024.ops.mulaw import mulaw_encode
 
     chunk_sec = 0.125
     Tc = int(chunk_sec * FS)
@@ -209,8 +209,8 @@ def test_native_encoder_matches_python():
     """The C wire encoder (native/streamc.cpp) produces byte-identical codes
     to the Python WireEncoder at the wire rate, and float-identical
     decimation (carried anti-alias history) within rounding."""
-    from haghighatshoarmuir2024_tpu.runtime.native_client import NativeWireEncoder
-    from haghighatshoarmuir2024_tpu.runtime.server import WireEncoder
+    from haghighatshoarmuir2024.runtime.native_client import NativeWireEncoder
+    from haghighatshoarmuir2024.runtime.server import WireEncoder
 
     rng = np.random.default_rng(123)
     chunks = [np.clip(rng.standard_normal((6000, 7)) * 0.4, -1, 1)
@@ -241,7 +241,7 @@ def test_native_clients_localize(demo):
     at 16x compression) drive the daemon end-to-end."""
     import os
 
-    from haghighatshoarmuir2024_tpu.runtime.native_client import (
+    from haghighatshoarmuir2024.runtime.native_client import (
         NativeShmClient,
         NativeStreamClient,
         NativeWireEncoder,
@@ -285,7 +285,7 @@ def test_ingest_upsample_carry_semantics(demo):
     (runtime/server.py ingest_up)."""
     import jax.numpy as jnp
 
-    from haghighatshoarmuir2024_tpu.ops.resample import (
+    from haghighatshoarmuir2024.ops.resample import (
         TAPS_PER_PHASE,
         design_upsample_fir,
         phase_table,
@@ -331,7 +331,7 @@ def test_server_churn_with_compressed_wire(demo):
     and the survivor's answers must stay correct throughout."""
     import time
 
-    from haghighatshoarmuir2024_tpu.runtime.server import WireEncoder
+    from haghighatshoarmuir2024.runtime.server import WireEncoder
 
     chunk_sec = 0.125
     Tc = int(chunk_sec * FS)
@@ -372,8 +372,8 @@ def test_server_multichip_mesh_localizes(demo):
     fused serve step) shard_mapped over the virtual 8-device mesh, streams
     split one-per-device — answers match the physics through real sockets
     and the compressed stateful wire."""
-    from haghighatshoarmuir2024_tpu.parallel.mesh import make_mesh
-    from haghighatshoarmuir2024_tpu.runtime.server import WireEncoder
+    from haghighatshoarmuir2024.parallel.mesh import make_mesh
+    from haghighatshoarmuir2024.runtime.server import WireEncoder
 
     mesh = make_mesh(8, shape=(8, 1))
     chunk_sec = 0.125
@@ -641,7 +641,7 @@ def test_server_multi_source_frames(demo):
 
 
 def test_server_multi_source_crossing_tracks(demo):
-    """End-to-end daemon test of two CROSSING sources (VERDICT r4 #5): a
+    """End-to-end daemon test of two CROSSING sources: a
     two-tone stream whose DoAs sweep through each other; the per-slot
     MultiDoaTracker (sources=2, track=True) keeps two confirmed tracks
     through the crossing, and tracker state resets with the slot."""

@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 from scipy.signal import hilbert, lfilter, butter, find_peaks
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.snn_beamformer import SNNBeamformer
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.snn_beamformer import SNNBeamformer
 
 FS = 48_000
 
@@ -186,8 +186,8 @@ def test_design_high_fmid_band_completes():
     completes and produces a finite unit-norm matrix."""
     import numpy as np
 
-    from haghighatshoarmuir2024_tpu import CenterCircularArray
-    from haghighatshoarmuir2024_tpu.models.snn_beamformer import SNNBeamformer
+    from haghighatshoarmuir2024 import CenterCircularArray
+    from haghighatshoarmuir2024.models.snn_beamformer import SNNBeamformer
 
     fs = 48_000
     f_lo, f_hi = 2300.0, 2600.0

@@ -10,9 +10,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models import SRPPHAT
-from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models import SRPPHAT
+from haghighatshoarmuir2024.ops.interp import signal_from_template
 
 FS = 48_000
 

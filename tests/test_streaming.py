@@ -6,11 +6,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.xylo import Demo
-from haghighatshoarmuir2024_tpu.runtime import StreamingLocalizer
-from haghighatshoarmuir2024_tpu.runtime.streaming import StreamState
-from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.xylo import Demo
+from haghighatshoarmuir2024.runtime import StreamingLocalizer
+from haghighatshoarmuir2024.runtime.streaming import StreamState
+from haghighatshoarmuir2024.ops.interp import signal_from_template
 
 FS = 48_000
 
@@ -142,7 +142,7 @@ def test_streaming_seam_divergence_contained(demo):
 def test_streaming_state_carries_lif_exactly(demo):
     """Feeding the same decided spikes through the offline simulator must give
     the same hidden counts as the streaming accumulation."""
-    from haghighatshoarmuir2024_tpu.models.xylo.sim import sim_hidden_batch
+    from haghighatshoarmuir2024.models.xylo.sim import sim_hidden_batch
 
     sig = _signal(demo, duration=0.4)
     sl = StreamingLocalizer(demo)
@@ -227,7 +227,7 @@ def test_streaming_unipolar_and_multiband():
     assert spikes_all.shape[1] == 2 * 14 * 2 // 2  # unipolar: 2M x F channels
     assert spikes_all.min() >= 0
     # counts consistent with the offline simulator on the same spikes
-    from haghighatshoarmuir2024_tpu.models.xylo.sim import sim_hidden_batch
+    from haghighatshoarmuir2024.models.xylo.sim import sim_hidden_batch
 
     ref = np.asarray(
         sim_hidden_batch(d.xylo_config, spikes_all[None].astype(np.int32))
@@ -241,7 +241,7 @@ def test_sharded_serving_step_matches_unsharded(demo):
     step (streams are independent — the layout has zero collectives)."""
     from jax.sharding import NamedSharding, PartitionSpec as PS
 
-    from haghighatshoarmuir2024_tpu.parallel.mesh import make_mesh
+    from haghighatshoarmuir2024.parallel.mesh import make_mesh
 
     sl = StreamingLocalizer(demo)
     B = 8
@@ -278,7 +278,7 @@ def test_sharded_serving_step_has_no_collectives(demo):
     """The multi-chip serving layout claims ZERO cross-device communication
     (streams are independent).  Machine-check it: the compiled HLO of the
     mesh-sharded step contains no collective ops at all."""
-    from haghighatshoarmuir2024_tpu.parallel.mesh import make_mesh
+    from haghighatshoarmuir2024.parallel.mesh import make_mesh
     from jax.sharding import NamedSharding, PartitionSpec as PS
 
     sl = StreamingLocalizer(demo)

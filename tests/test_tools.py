@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from haghighatshoarmuir2024_tpu.tools.localize import main
+from haghighatshoarmuir2024.tools.localize import main
 
 FS = 48_000
 

@@ -5,8 +5,8 @@ improvement over raw estimates and the reference-era window median."""
 import numpy as np
 import pytest
 
-from haghighatshoarmuir2024_tpu.utils.stats import window_median
-from haghighatshoarmuir2024_tpu.utils.tracking import (
+from haghighatshoarmuir2024.utils.stats import window_median
+from haghighatshoarmuir2024.utils.tracking import (
     DoaTracker,
     track_angles,
 )
@@ -112,7 +112,7 @@ def test_stationary_variance_reduction(alpha):
 # ---------------------------------------------------------------------------
 # Multi-target GNN tracker
 # ---------------------------------------------------------------------------
-from haghighatshoarmuir2024_tpu.utils.tracking import (  # noqa: E402
+from haghighatshoarmuir2024.utils.tracking import (  # noqa: E402
     MultiDoaTracker,
     track_multi_angles,
 )

@@ -5,8 +5,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.xylo import (
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.xylo import (
     Demo,
     XyloSim,
     build_localization_spec,
@@ -17,7 +17,7 @@ from haghighatshoarmuir2024_tpu.models.xylo import (
     truncate_fan_out,
     validate_config,
 )
-from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template
+from haghighatshoarmuir2024.ops.interp import signal_from_template
 
 FS = 48_000
 
@@ -83,7 +83,7 @@ def test_validate_config_hardware_limits():
 
 def test_validate_config_resource_limits_waivable():
     """The chip RESOURCE caps (hidden-neuron count) can be waived for
-    software deployments (the TPU simulator has no neuron limit — e.g. the
+    software deployments (the integer simulator has no neuron limit — e.g. the
     3-band x 449-grid network the reference could only run one band at a
     time, snn_localization_benchmark.py:556-562); numeric quantization-range
     checks stay fatal either way."""
@@ -99,7 +99,7 @@ def test_validate_config_resource_limits_waivable():
     assert any("hidden neurons exceed" in p for p in problems)
     assert not validate_config(cfg, resource_limits=False)
 
-    from haghighatshoarmuir2024_tpu.models.xylo.quantize import XyloConfig
+    from haghighatshoarmuir2024.models.xylo.quantize import XyloConfig
 
     bad = XyloConfig(
         w_in=np.full((2, 3), 300, np.int32),  # beyond the 8-bit weight range
@@ -131,7 +131,7 @@ def test_truncate_fan_out():
 
 # ---------------------------------------------------------------- integer LIF
 def _single_neuron_cfg(dash=2, threshold=100):
-    from haghighatshoarmuir2024_tpu.models.xylo.quantize import XyloConfig
+    from haghighatshoarmuir2024.models.xylo.quantize import XyloConfig
 
     return XyloConfig(
         w_in=np.array([[64]], np.int32),
@@ -402,7 +402,7 @@ def test_matched_profile_estimator():
 
 
 def test_matched_profile_estimator_unipolar():
-    """Unipolar-path calibration regression (VERDICT r1 #6): the matched
+    """Unipolar-path calibration regression: the matched
     estimator must localize noiseless and mildly noisy tones within a couple
     of grid steps on the unipolar (DC-removed singular vector) design, where
     the reference-parity peak estimator carries an ~8-12 deg warp
@@ -539,7 +539,7 @@ def test_matched_auto_estimator():
     calibrated folded profile (the affine-invariance identity the
     implementation relies on); and the method requires the stacked
     calibration."""
-    from haghighatshoarmuir2024_tpu.models.xylo.pipeline import _cos1
+    from haghighatshoarmuir2024.models.xylo.pipeline import _cos1
 
     geometry = CenterCircularArray(radius=4.5e-2, num_mic=7)
     grid = np.linspace(-np.pi, np.pi, 33)

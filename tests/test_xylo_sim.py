@@ -1,5 +1,5 @@
 """Pin the integer-LIF step convention and verify the alternative-ordering
-flags used by experiments/xylo_ordering_sensitivity.py (VERDICT r3 #6).
+flags used by experiments/xylo_ordering_sensitivity.py.
 
 The DEFAULT convention (decay_first / subtract) is the documented LIFBitshift
 step the simulator asserts (models/xylo/sim.py): per step
@@ -13,8 +13,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from haghighatshoarmuir2024_tpu.models.xylo.quantize import XyloConfig
-from haghighatshoarmuir2024_tpu.models.xylo.sim import XyloSim, sim_hidden_batch
+from haghighatshoarmuir2024.models.xylo.quantize import XyloConfig
+from haghighatshoarmuir2024.models.xylo.sim import XyloSim, sim_hidden_batch
 
 
 def _tiny_config(n_in=4, n_hid=6, n_out=2, seed=0):

@@ -3,15 +3,15 @@ import numpy as np
 import pytest
 import jax
 
-from haghighatshoarmuir2024_tpu import CenterCircularArray
-from haghighatshoarmuir2024_tpu.models.xylo import (
+from haghighatshoarmuir2024 import CenterCircularArray
+from haghighatshoarmuir2024.models.xylo import (
     Demo,
     DemoPushToHidden,
     EnergyModel,
     count_operations,
     estimate_power,
 )
-from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template
+from haghighatshoarmuir2024.ops.interp import signal_from_template
 
 FS = 48_000
 
@@ -52,7 +52,7 @@ def test_push_to_hidden_fan_out_truncated(demos):
 
 
 def test_truncate_fan_out_reference_quirks():
-    from haghighatshoarmuir2024_tpu.models.xylo.spec import truncate_fan_out
+    from haghighatshoarmuir2024.models.xylo.spec import truncate_fan_out
 
     # distinct magnitudes: the 63rd-largest is the threshold and is zeroed
     # itself -> exactly 62 survivors
@@ -94,7 +94,7 @@ def test_push_to_hidden_matches_block_recurrent_form(demos):
     recurrent matrix [[0, W], [0, R]] — the layout rockpool's mapper produces
     on Xylo (micloc/xylo_snn_localization_push_to_hidden.py:221-273)."""
     import jax.numpy as jnp
-    from haghighatshoarmuir2024_tpu.models.xylo.sim import _sim_hidden
+    from haghighatshoarmuir2024.models.xylo.sim import _sim_hidden
 
     _, pth = demos
     cfg = pth.xylo_config
@@ -156,7 +156,7 @@ def test_push_to_hidden_equals_standard_when_recurrence_uniform(demos):
     # same weights: wire the standard config into the pth flow
     current = np.asarray(demo.spike_encoding(sig_in))
     demo.xylo.reset_state()
-    from haghighatshoarmuir2024_tpu.models.xylo.sim import XyloSim
+    from haghighatshoarmuir2024.models.xylo.sim import XyloSim
 
     sim = XyloSim(demo.xylo_config)
     proj = np.asarray(
@@ -218,8 +218,8 @@ def test_demo_save_load_stacked_profiles(tmp_path):
     model answers matched_stacked identically without recalibration."""
     import jax.numpy as jnp
 
-    from haghighatshoarmuir2024_tpu import CenterCircularArray
-    from haghighatshoarmuir2024_tpu.ops.interp import signal_from_template
+    from haghighatshoarmuir2024 import CenterCircularArray
+    from haghighatshoarmuir2024.ops.interp import signal_from_template
 
     FS = 48_000
     geometry = CenterCircularArray(radius=4.5e-2, num_mic=7)
